@@ -110,9 +110,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     else:
         from deep_q_learning_tpu.train import Trainer
 
-        trainer = Trainer(
-            cfg, workdir=args.workdir, aot_cache_dir=args.aot_cache or None
-        ).init()
+        trainer = Trainer(cfg, workdir=args.workdir).init()
         if args.resume:
             trainer.restore()  # latest checkpoint in workdir (true resume:
             # params, opt state, buffer, RNG, counters — SURVEY §5.4 fix)
@@ -286,11 +284,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument(
         "--distributed", action="store_true",
         help="shard envs over all visible devices (replicated learner, "
-        "gradient all-reduce over ICI)",
-    )
-    p.add_argument(
-        "--aot-cache", type=str, default=None,
-        help="cross-process executable cache dir (utils/aot.py)",
+        "gradient all-reduce across devices)",
     )
     p.add_argument("--history-out", type=str, default=None, metavar="JSONL")
     p.add_argument(
@@ -335,6 +329,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_hpo)
 
     args = ap.parse_args(argv)
+    from deep_q_learning_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -16,7 +16,7 @@ from typing import Any, Callable, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.config import DQNConfig
 from deep_q_learning_tpu.replay.nstep import LearnBatch
@@ -28,8 +28,8 @@ class HyperParams:
     """Runtime (traced) hyperparameters.
 
     These live in the runner state instead of being baked into the jaxpr, so
-    HPO trials and schedule tweaks reuse ONE compiled superstep (remote-TPU
-    compiles cost minutes; see CLAUDE.md).  Values that change program
+    HPO trials and schedule tweaks reuse ONE compiled superstep (a lander
+    superstep takes tens of seconds to compile).  Values that change program
     structure or shapes (batch size, cadences, network width, replay kind)
     remain static in :class:`~deep_q_learning_tpu.config.DQNConfig`."""
 
@@ -103,8 +103,7 @@ def make_optimizer(cfg: DQNConfig) -> optax.GradientTransformation:
     Wrapped in ``optax.inject_hyperparams`` so the learning rate (and clip
     norm, when enabled) live in ``opt_state.hyperparams`` as TRACED values —
     the update step overwrites them from :class:`HyperParams` each call, so
-    LR sweeps reuse one compiled superstep (remote-TPU compiles cost minutes;
-    CLAUDE.md)."""
+    LR sweeps reuse one compiled superstep."""
     if cfg.optimizer not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     ctor = _OPTIMIZERS[cfg.optimizer]
@@ -180,7 +179,7 @@ def epsilon_greedy(
     One uniform draw serves both decisions: ``u < ε`` explores, and
     conditioned on that, ``u/ε`` is again uniform — so ``floor(u/ε · A)`` is
     a uniform random action.  Halves the per-frame PRNG work (threefry is a
-    software cipher on the VPU; see artifacts/lunar_profile.json)."""
+    software cipher)."""
     n, num_actions = q_values.shape
     greedy = jnp.argmax(q_values, axis=-1)
     u = jax.random.uniform(key, (n,))
@@ -206,8 +205,8 @@ def build_update_step(
 
     When ``axis_name`` is set (shard_map over the "env" mesh axis), gradients
     and the loss are ``pmean``-ed across shards so the replicated learner
-    stays bit-identical on every device — the ICI all-reduce of the design
-    (SURVEY.md §5.8).
+    stays bit-identical on every device — the gradient all-reduce of the
+    design (SURVEY.md §5.8).
 
     ``hyper`` (a :class:`HyperParams`) supplies the traced learning rate /
     clip norm / Polyak tau; when omitted, the values baked into the optimizer
@@ -221,26 +220,6 @@ def build_update_step(
         huber_delta=cfg.huber_delta,
         ref_terminal_quirk=cfg.ref_terminal_quirk,
     )
-
-    if cfg.use_pallas:
-        # Fused Pallas TD+loss path; same interface, custom VJP inside.
-        if cfg.loss != "huber":
-            raise ValueError("use_pallas=True supports loss='huber' only")
-        if cfg.ref_terminal_quirk:
-            raise ValueError(
-                "use_pallas=True implements the FIXED terminal semantics; "
-                "disable ref_terminal_quirk (SURVEY.md §3.2)"
-            )
-        from deep_q_learning_tpu.ops.td_kernels import build_pallas_loss_fn
-
-        loss_fn = build_pallas_loss_fn(
-            apply_fn,
-            double=cfg.double,
-            huber_delta=cfg.huber_delta,
-            # CPU backend (tests / fake mesh) runs the same kernel through the
-            # Pallas interpreter; TPU compiles it with Mosaic
-            interpret=jax.default_backend() == "cpu",
-        )
 
     def update(
         ts: TrainState,

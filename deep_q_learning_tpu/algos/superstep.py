@@ -1,4 +1,4 @@
-"""The fused actor-learner "superstep" — the heart of the TPU-native design.
+"""The fused actor-learner "superstep" — the heart of the device-resident design.
 
 The reference interleaves host Python between every environment step and
 crosses the host<->device boundary four times per training step
@@ -22,7 +22,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.config import DQNConfig
 from deep_q_learning_tpu.envs.base import Transition, VectorEnv
@@ -82,23 +82,21 @@ def _scatter_completed_returns(
     window (multiple completions per vector step supported: each finished env
     gets its rank-among-finished as an offset from the cursor).
 
-    Implementation note (round 5): a naive ``window.at[idx].set`` is an XLA
-    scatter with (potentially) colliding indices, which serializes on TPU —
-    measured ~680 µs per frame at 131072 envs / W=512, i.e. ~35% of the whole
-    cartpole superstep frame.  Two exact rewrites:
+    Implementation: a naive ``window.at[idx].set`` is an XLA scatter with
+    (potentially) colliding indices.  Two exact rewrites replace it:
 
     1. Only the LAST ``W`` completions (by rank) can survive the ring, and
        restricted to those the target slots are UNIQUE — so "last writer
        wins" scatter semantics reduce to a collision-free one-hot sum.
-    2. A flat (N, W) one-hot still materializes N·W elements (268 MB at the
-       headline shape).  Factor the slot as ``slot = b·W2 + a`` and contract
-       the two *residue* one-hots — (N, W2) and (N, W1) with W1·W2 ≥ W —
-       through a single MXU matmul ``(2·W1, N) @ (N, W2)`` that carries both
-       the written values and the write counts.  Cost scales with
-       N·(W2 + 2·W1) ≈ N·√W instead of N·W.
+    2. A flat (N, W) one-hot still materializes N·W elements (268 MB at
+       N=131072, W=512).  Factor the slot as ``slot = b·W2 + a`` and
+       contract the two *residue* one-hots — (N, W2) and (N, W1) with
+       W1·W2 ≥ W — through a single matmul ``(2·W1, N) @ (N, W2)`` that
+       carries both the written values and the write counts.  Cost scales
+       with N·(W2 + 2·W1) ≈ N·√W instead of N·W.  The matmul runs at
+       HIGHEST precision: each output sums one value with zeros, so it is
+       exact, where a TF32 product would round the returns.
 
-    Measured at N=131072, W=512 on the v5e: scatter 679 µs, flat one-hot
-    matmul 143 µs, fused select-reduce 248 µs, this factorization 38 µs.
     Final window contents are bit-identical to in-order scatter semantics."""
     w = window.shape[0]
     done_i = done.astype(jnp.int32)
@@ -121,7 +119,9 @@ def _scatter_completed_returns(
     onehot_b = onehot_b * selm[:, None]  # (N, W1), zero rows for non-writers
     # one matmul carries values (top W1 rows) and counts (bottom W1 rows)
     packed = jnp.concatenate([onehot_b * returns[:, None], onehot_b], axis=1)
-    out = packed.T @ onehot_a  # (2*W1, W2)
+    out = jnp.matmul(
+        packed.T, onehot_a, precision=jax.lax.Precision.HIGHEST
+    )  # (2*W1, W2)
     written = out[:w1].reshape(w1 * w2)[:w]
     wrote = out[w1:].reshape(w1 * w2)[:w] > 0.5
     window = jnp.where(wrote, written, window)
@@ -202,26 +202,23 @@ def build_superstep(
         thresholds are traced (``hyper``), so they can change between calls
         without recompiling.
 
-        TPU structural rule (round 5, measured): the ring storage must NEVER
-        appear inside the ``lax.cond`` — as operand OR closure capture — or
-        XLA inserts per-frame copies of the touched storage leaves to keep
-        the in-place ring write legal (~800 µs/frame at the 131072-env
-        cartpole headline, vs ~58 µs for the B-sized sample itself).  For the
-        common ``updates_per_step == 1`` case the sample/assemble gathers run
-        UNCONDITIONALLY outside the cond (harmless before warmup: the update
-        that would consume the garbage batch is skipped, and the samplers are
-        division-guarded), and the cond carries only the train state and the
-        replay's small learner-mutable view (PER priorities).
+        Structural rule: the ring storage must NEVER appear inside the
+        ``lax.cond`` — as operand OR closure capture — or XLA may insert
+        per-frame copies of the touched storage leaves to keep the in-place
+        ring write legal.  For the common ``updates_per_step == 1`` case the
+        sample/assemble gathers run UNCONDITIONALLY outside the cond
+        (harmless before warmup: the update that would consume the garbage
+        batch is skipped, and the samplers are division-guarded), and the
+        cond carries only the train state and the replay's small
+        learner-mutable view (PER priorities).
 
-        The hoisted structure is only profitable when the learner actually
-        runs every frame: with cfg.train_every > 1 the unconditional
-        sample/assemble is pure waste on skipped frames (measured: it
-        regressed lunar_per_scaled@1024 2.8M -> 1.6M env-steps/s, whose PER
-        sample is ~250 µs/frame at train_every=4), and at those presets'
-        shapes XLA picks non-conflicting layouts so the cond path is cheap.
-        The structure choice keys on the STATIC cfg.train_every; a runtime
-        hyper.train_every override stays correct on either path (do_train
-        honors the traced value), it just may not pick the fastest one."""
+        The hoisted structure only pays when the learner actually runs
+        every frame: with cfg.train_every > 1 the unconditional
+        sample/assemble is waste on skipped frames, so those configs keep
+        sampling inside the cond.  The structure choice keys on the STATIC
+        cfg.train_every; a runtime hyper.train_every override stays correct
+        on either path (do_train honors the traced value), it just may not
+        pick the cheaper one."""
         # warmup gate in GLOBAL transitions: local filled * global env count
         do_train = jnp.logical_and(
             env_step % hyper.train_every == 0,

@@ -10,7 +10,7 @@ threshold — with the heavy pieces swapped for this framework's components:
 
   * replay: the native C++ ring buffer + sampler (``native/``) instead of the
     numpy/numba pair;
-  * compute: the same jitted batched update step the TPU path uses
+  * compute: the same jitted batched update step the device path uses
     (``algos/dqn.py``), with action selection batched per step;
   * fixed quirks: separate terminated/truncated handling (configurable), the
     loop bound uses max_steps (ref bug at q_agent.py:174), eval returns true

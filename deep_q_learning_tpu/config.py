@@ -82,19 +82,6 @@ class DQNConfig:
     hidden: Tuple[int, ...] = (256, 256)
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
 
-    # --- kernels ----------------------------------------------------------
-    # The two Pallas kernels are gated SEPARATELY (VERDICT r4 weak #1: one
-    # flag used to gate both, shipping the PER sampling kernel at shapes
-    # where it measurably loses to XLA just to buy the TD kernel's win).
-    use_pallas: bool = False  # fused Pallas TD+loss kernel on the TPU path
-    # MXU PER sampling kernel (ops/sample_kernels.py).  Default OFF: the
-    # kernel-compile-matrix gate measures it slower than the fused-XLA
-    # two-level sampler at every shipped shape (artifacts/
-    # kernel_compile_matrix.json, 0/4 wins) — it remains available (and
-    # CI-tested) as the reference implementation of the MXU sampling
-    # pattern, but no preset pays for it.
-    use_pallas_sampler: bool = False
-
     # --- lander physics engine (ignored by other envs) --------------------
     # "jointed": the Box2D-exact 3-body assembly (hull + motorized leg
     # joints, envs/lander_solver.py) — touchdown outcomes emerge from joint
@@ -105,18 +92,13 @@ class DQNConfig:
     lander_vel_iters: int = 180  # gym's world.Step(.., 6*30, 2*30)
     lander_pos_iters: int = 60
     # Solver-convergence early exit (envs/lander_solver.py): 0.0 (the
-    # Box2D-exact fixed-count loop) everywhere, including all presets.
-    # MEASURED DEAD END (r5, artifacts/vel_tol_probe.json): on real training
-    # batches the per-iteration accumulator delta does NOT decay in flight —
-    # the joint motor converges at <~0.1%/iteration (b2's motorMass
-    # underestimates the ~33x effective leg inertia about the anchor), so
-    # ~25% of lanes never drop below even 1e-4 and the vmapped while_loop
-    # (which exits on the slowest lane) measures 21% SLOWER than the fixed
-    # loop at 1024 envs (jointed_iters_sweep.json).  Iteration count itself
-    # is nearly free on TPU (120->64 vel iters: +3%); the frame cost was the
-    # terrain-gather geometry, fixed by one-hot contraction (lander_solver.
-    # _onehot_pick).  The tol path stays available + unit-tested for
-    # single-env / research use, where per-lane exit does pay.
+    # Box2D-exact fixed-count loop) everywhere, including all presets.  On
+    # real training batches the per-iteration accumulator delta does NOT
+    # decay in flight — the joint motor converges at <~0.1%/iteration (b2's
+    # motorMass underestimates the ~33x effective leg inertia about the
+    # anchor), so ~25% of lanes never drop below even 1e-4 and the vmapped
+    # while_loop exits on the slowest lane.  The tol path stays available +
+    # unit-tested for single-env / research use, where per-lane exit pays.
     lander_vel_tol: float = 0.0
 
     def env_param_overrides(self) -> dict:
@@ -204,9 +186,10 @@ def lunar_dddqn_vector() -> DQNConfig:
     """Config 3: LunarLander dueling double DQN, on-device uniform replay,
     jit-fused step+update.
 
-    Tuned on the v5e chip: n-step-3 + adam + Polyak τ=0.005 trains stably to
-    ~160 window / ~172 greedy eval at 100M env steps (1-step variants with
-    periodic hard sync peaked near 0 and then diverged — see CLAUDE.md)."""
+    Training result from the previous chip, to re-check on the GPU: n-step-3
+    + adam + Polyak τ=0.005 trained stably to ~160 window / ~172 greedy eval
+    at 100M env steps (1-step variants with periodic hard sync peaked near 0
+    and then diverged)."""
     return DQNConfig(
         env_id="LunarLander-v2",
         num_envs=128,
@@ -241,22 +224,15 @@ def lunar_dddqn_vector() -> DQNConfig:
 
 def lunar_per() -> DQNConfig:
     """Config 4: LunarLander DDQN + prioritized replay (device two-level
-    proportional sampler).  The SOLVING config: window 202 / greedy eval 204
-    at 29.5M env steps in ~80s of TPU v5e compute (+ compile).
-
-    ``use_pallas=True`` routes the learner through the fused Pallas TD+huber
-    kernel (round-2 measurement with both kernels gated together: 0.54M vs
-    0.38M env-steps/s on the v5e, +42%; solve verified end-to-end).  The MXU
-    PER sampling kernel stays OFF (``use_pallas_sampler``): the kernel gate
-    measures it 0/4 against the fused-XLA sampler at the shipped shapes
-    (VERDICT r4 weak #1; artifacts/kernel_compile_matrix.json)."""
+    proportional sampler).  The SOLVING config: on the previous chip it
+    reached window 202 / greedy eval 204 at 29.5M env steps (an earlier-chip
+    training result, to re-check on the GPU)."""
     return dataclasses.replace(
         lunar_dddqn_vector(),
         replay="prioritized",
         per_alpha=0.6,
         per_beta=0.4,
         eps_min=0.01,
-        use_pallas=True,
     )
 
 
@@ -265,25 +241,16 @@ def lunar_per_scaled(num_envs: int = 1024) -> DQNConfig:
     transition ratio held constant: batch grows with the env count and the
     update cadence stretches so each generated transition is still sampled
     ~0.25x per frame window (the 128-env solving preset samples 2x).  Large
-    batches amortize the learner's fixed per-launch costs — at 1024 envs
-    this is +12% aggregate steps/s over batch-256-every-frame with the SAME
-    sample throughput (artifacts/lunar_profile.json; bench.py uses this
-    config for the 1024-env lander line).
+    batches amortize the learner's fixed per-launch costs (bench.py uses
+    this config for the 1024-env lander line).
 
     The stretched cadence needs compensation to keep SOLVING: Polyak tau
     scales with train_every (same tracking speed per wall-clock update
     stream) and the exploration horizon scales with the env count (same
-    per-env experience).  Uncompensated, batch-1024-every-4 peaks at window
-    45; compensated it solves at 42M steps with greedy eval 203
-    (artifacts/lunar_per_scaled_solve.json).
-
-    Pallas crossover (measured r4, artifacts/pallas_crossover.json): the
-    fused TD+huber kernel and MXU PER sampler speed the whole superstep
-    1.38x at (128 envs, batch 256, train_every 1), 1.16x at (512, 512, 2),
-    1.00x at this preset's (1024, 1024, 4) — the win tracks the learner's
-    share of the frame, which the stretched cadence amortizes.  Pallas
-    stays ON here: it costs nothing at this shape and keeps kernel
-    regressions visible in the driver bench metric (VERDICT r1 item 8)."""
+    per-env experience).  On the previous chip, uncompensated
+    batch-1024-every-4 peaked at window 45; compensated it solved at 42M
+    steps with greedy eval 203 (earlier-chip training results, to re-check
+    on the GPU)."""
     scale = max(1, num_envs // 128)
     train_every = 4 if num_envs >= 512 else 1
     return dataclasses.replace(
@@ -321,13 +288,12 @@ def lunar_jointed_per() -> DQNConfig:
     """Solving preset ON the fidelity engine (VERDICT r3 item 6): the
     ``lunar_per`` recipe with the jointed 3-body physics.
 
-    Solve-validated 3/3 seeds ON THE TPU v5e with this exact preset
-    (use_pallas=True, slot-major replay storage; artifacts/
-    lunar_jointed_solve.json, r5 final): windows 213.5/201.0/201.4 at
-    2.9-3.6M env steps in 15-19s wall each, TRUE greedy evals
-    230.5/213.5/201.2.  (r4's CPU-backend 3/3 run under a service outage
-    measured the same band: windows 204-234 at 2.9-4.1M.)  Notably the faithful joint
-    dynamics solve ~7x FASTER in env steps than the same recipe on the
+    Solve-validated 3/3 seeds on the previous chip: windows
+    213.5/201.0/201.4 at 2.9-3.6M env steps, true greedy evals
+    230.5/213.5/201.2 (earlier-chip training results, to re-check on the
+    GPU); a CPU-backend 3/3 run measured the same band, windows 204-234 at
+    2.9-4.1M (artifacts/lunar_jointed_solve_cpu*.json).  The faithful joint
+    dynamics solve ~7x faster in env steps than the same recipe on the
     rigid engine (29.5M): leg-joint compliance smooths the touchdown
     reward landscape."""
     return dataclasses.replace(
@@ -342,8 +308,9 @@ def acrobot_vector() -> DQNConfig:
     """Generality preset (VERDICT r4 missing #4): the task-agnostic L2 on a
     third env family.  Acrobot-v1 (gym-cross-validated to ~6.5e-5 —
     ``envs/gym_compat.py::compare_classic``), the ``lunar_dddqn_vector``
-    recipe with a shorter exploration horizon; solves (window >= -100)
-    well inside 5M env steps (artifacts/acrobot_solve.json)."""
+    recipe with a shorter exploration horizon; solved (window >= -100)
+    well inside 5M env steps on the previous chip (to re-check on the
+    GPU)."""
     return dataclasses.replace(
         lunar_dddqn_vector(),
         env_id="Acrobot-v1",
@@ -360,9 +327,10 @@ def mountain_car_vector() -> DQNConfig:
     """MountainCar-v0 (VERDICT r4 missing #4).  The hard-exploration
     classic: reward is -1/step until the goal, so an eps-greedy DQN only
     learns after a lucky rollout reaches the flag.  n-step-5 returns give
-    the vectorized sweep enough random goal-hits to bootstrap from;
-    measured (artifacts/mountain_car_solve.json, TPU v5e): SOLVES at 4.26M
-    env steps / 26.7s wall (window -107.1, bar -110; greedy eval -102.9).
+    the vectorized sweep enough random goal-hits to bootstrap from; on the
+    previous chip it solved at 4.26M env steps (window -107.1, bar -110;
+    greedy eval -102.9; an earlier-chip training result, to re-check on the
+    GPU).
     An eps floor of 0.1 learns the same greedy policy (eval -99.7) but the
     exploration noise keeps the training window ~16 points below it —
     anneal to 0.02 to let the window express the policy."""
@@ -383,15 +351,15 @@ def mountain_car_vector() -> DQNConfig:
 
 def multihost_ddqn() -> DQNConfig:
     """Config 5: multi-host DDQN — envs sharded over the mesh, replicated
-    learner with gradient all-reduce over ICI.  Same algorithm config as
+    learner with gradient all-reduce.  Same algorithm config as
     config 3; the sharding comes from ``parallel.make_distributed_superstep``."""
     return dataclasses.replace(lunar_dddqn_vector(), num_envs=8192)
 
 
 # Fields that change compiled array shapes or program structure: a checkpoint
 # written under one value cannot restore into a trainer built with another
-# (the failure would otherwise surface as an opaque pytree/shape mismatch
-# deep inside orbax — see Trainer.restore's cross-check).
+# (the failure would otherwise surface as a bare tree/leaf mismatch at
+# restore — see Trainer.restore's cross-check).
 SHAPE_AFFECTING_FIELDS = (
     "env_id",
     "num_envs",
@@ -410,8 +378,6 @@ SHAPE_AFFECTING_FIELDS = (
     "target_sync_mode",
     "hidden",
     "compute_dtype",
-    "use_pallas",
-    "use_pallas_sampler",
     "return_window",
     # lander engine selection changes the traced program AND the env-state
     # pytree structure (jointed adds leg bodies + solver accumulators)

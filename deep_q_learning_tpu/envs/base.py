@@ -1,4 +1,4 @@
-"""Functional environment API — the TPU-native replacement for Gym's stateful envs.
+"""Functional environment API — the device-resident replacement for Gym's stateful envs.
 
 The reference framework steps a single, host-side, stateful ``gym.Env``
 (``/root/reference/General/QLearning/q_agent.py:177`` calls ``env.step`` once per
@@ -32,7 +32,7 @@ from typing import Any, Generic, Tuple, TypeVar
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 TEnvState = TypeVar("TEnvState")
 TEnvParams = TypeVar("TEnvParams")

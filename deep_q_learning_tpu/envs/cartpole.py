@@ -8,7 +8,7 @@ termination at |x|>2.4 or |theta|>12 deg, reset uniform in (-0.05, 0.05)).
 The reference repo has no env physics of its own — it imports Gym
 (``/root/reference/General/QLearning/q_agent.py:177``).  This module replaces
 that host-side dependency with jittable dynamics so the whole actor loop
-compiles onto the TPU.
+compiles onto the accelerator.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.envs.base import Environment, EnvParams
 

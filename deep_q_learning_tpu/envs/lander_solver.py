@@ -147,13 +147,11 @@ def hull_origin(cx, cy, a):
 def _onehot_pick(vec, idx):
     """``vec[..., idx]`` as a one-hot contraction over the last axis.
 
-    TPU-native replacement for a batched dynamic gather: under vmap a
-    ``vec[i0]`` with per-env indices lowers to an XLA gather, which the
-    ablation profile (artifacts/jointed_ablation.json) measured as ~70% of
-    the whole jointed frame (the terrain lookups in collide alone cost more
-    than the entire 120-iteration solver).  The one-hot form is pure
-    compare+multiply+reduce — VPU-shaped, fully fusable — and bit-identical
-    (the sum selects exactly one element; the rest contribute +0.0)."""
+    Replacement for a batched dynamic gather: under vmap a ``vec[i0]`` with
+    per-env indices lowers to an XLA gather.  The one-hot form is pure
+    compare+multiply+reduce — fully fusable — and bit-identical (the sum
+    selects exactly one element; the rest contribute +0.0).  Whether it
+    still beats the gather on the GPU is unmeasured (ROADMAP design 3.5)."""
     oh = (idx[..., None] == jnp.arange(vec.shape[-1])).astype(vec.dtype)
     return jnp.sum(oh * vec, axis=-1)
 
@@ -255,7 +253,7 @@ def collide_leg(terrain, leg: Body) -> Tuple[LegContacts, jax.Array]:
     second = jnp.argmin(masked, axis=-1)
 
     def pick(arr, idx):
-        # one-hot contraction over the 4-corner axis (no TPU gather; see
+        # one-hot contraction over the 4-corner axis (no gather; see
         # _onehot_pick).  idx dtype drives the compare; arr may be bool.
         oh = idx[..., None] == jnp.arange(arr.shape[-1])
         if arr.dtype == jnp.bool_:
@@ -607,7 +605,7 @@ def assembly_step(
 
     def warm_contact_acc(c: LegContacts, stored):
         # stored[(idx, :)] via one-hot over the 4-corner axis (see
-        # _onehot_pick: batched gathers dominate the frame cost on TPU)
+        # _onehot_pick)
         oh1 = (c.idx1[..., None] == jnp.arange(4)).astype(jnp.float32)
         oh2 = (c.idx2[..., None] == jnp.arange(4)).astype(jnp.float32)
         p1 = jnp.sum(oh1[..., :, None] * stored, axis=-2)  # (2,)
@@ -646,7 +644,7 @@ def assembly_step(
     carry = (hv0, l1v0, l2v0, ja1_0, ja2_0, ca1_0, ca2_0)
     if vel_tol and vel_tol > 0.0:
         # Convergence early exit — single-env / research use ONLY, off (0.0)
-        # in every preset.  Measured r5 (artifacts/vel_tol_probe.json): the
+        # in every preset.  Measured on training batches: the
         # median training lane converges in 3-4 iterations, but ~25% of
         # lanes show a CONSTANT per-iteration accumulator delta (~5e-4) that
         # never decays — the joint motor's correction rate is <~0.1%/iter
@@ -654,8 +652,8 @@ def assembly_step(
         # effective leg inertia about the anchor, and Box2D's own behavior
         # (motor impulse accumulating linearly with iteration count) is what
         # fidelity requires.  Under vmap the while_loop exits on the SLOWEST
-        # lane, so at training batch sizes this path is slower than the
-        # fixed loop (jointed_iters_sweep.json: 660k vs 835k steps/s).
+        # lane, so at training batch sizes this path was slower than the
+        # fixed loop.
         def tol_body(tc):
             st, _, it = tc
             new = vel_body(0, st)

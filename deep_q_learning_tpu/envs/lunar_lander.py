@@ -3,7 +3,7 @@
 The reference trains on Gym's ``LunarLander-v2`` (Box2D on the host,
 ``/root/reference/Test/lunar_lander.py:44``); every env step is a host call
 (``q_agent.py:177``).  This module re-implements the task as pure jittable
-JAX so thousands of landers step in lockstep on the TPU.
+JAX so thousands of landers step in lockstep on the accelerator.
 
 Fidelity contract (round 2 — checked against gymnasium's canonical Box2D
 implementation, ``gymnasium/envs/box2d/lunar_lander.py``):
@@ -68,7 +68,7 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.envs.base import Environment, EnvParams
 import deep_q_learning_tpu.envs.lander_solver as lander_solver
@@ -172,15 +172,15 @@ class LunarLanderParams(EnvParams):
     # of real-training lanes never converge below 1e-4 (the joint motor
     # corrects <~0.1%/iteration), so the vmapped while_loop exits on the
     # slowest lane and runs SLOWER than the fixed loop (config.py
-    # lander_vel_tol comment; artifacts/vel_tol_probe.json).
+    # lander_vel_tol comment).
     vel_tol: float = struct.field(pytree_node=False, default=0.0)
 
 
 def _terrain_height(terrain: jax.Array, x: jax.Array) -> jax.Array:
     """Piecewise-linear terrain height at world x (chunks span [0, W]).
 
-    Lookup is a one-hot contraction, not an index gather — batched dynamic
-    gathers dominate frame cost on TPU (lander_solver._onehot_pick)."""
+    Lookup is a one-hot contraction, not an index gather
+    (lander_solver._onehot_pick)."""
     chunk_w = W / (CHUNKS - 1)
     xi = jnp.clip(x / chunk_w, 0.0, CHUNKS - 1 - 1e-6)
     i0 = jnp.floor(xi).astype(jnp.int32)

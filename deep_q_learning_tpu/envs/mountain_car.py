@@ -11,7 +11,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.envs.base import Environment, EnvParams
 

@@ -1,6 +1,6 @@
 """Native (C++) host runtime components, bound via ctypes.
 
-The TPU compute path is pure JAX/XLA/Pallas; these components cover the
+The device compute path is pure JAX/XLA; these components cover the
 *host* side of the framework where native code earns its keep — currently
 the replay ring buffer + uniform sampler used by the host-compat training
 loop (``compat/host_loop.py``), the native analog of the reference's
@@ -28,8 +28,12 @@ _lib: Optional[ctypes.CDLL] = None
 def _build_library() -> str:
     if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
         return _LIB
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", _LIB]
+    # build beside the target, then rename: concurrent first uses (test
+    # workers) never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _LIB)
     return _LIB
 
 

@@ -5,7 +5,7 @@
 // circular buffer of (s, a, r, s', done) with overwrite-oldest writes and
 // uniform with-replacement batch sampling. Used by the host-compat training
 // path (deep_q_learning_tpu/compat/host_loop.py) that drives arbitrary
-// stateful Python/Gym environments; the TPU-native path keeps its replay in
+// stateful Python/Gym environments; the device-resident path keeps its replay in
 // HBM instead (deep_q_learning_tpu/replay/).
 //
 // Build: g++ -O3 -march=native -shared -fPIC replay_buffer.cc -o libreplay.so

@@ -1,23 +1,25 @@
 """Mesh-sharded actor-learner: envs sharded, learner replicated.
 
 This is BASELINE.json config 5 ("Multi-host DDQN: envs sharded over 2+ hosts,
-sharded learner with ICI gradient allreduce") — net-new scope over the
+sharded learner with gradient allreduce") — net-new scope over the
 reference, which is single-device (SURVEY.md §2, §5.8).
 
 Layout over the 1-D ``("env",)`` mesh:
-  * env states / observations / per-env accumulators / replay storage:
-    sharded on their leading env axis (``P("env")``) — every shard steps its
-    own envs and writes its own replay shard, no cross-shard traffic;
+  * env states / observations / per-env accumulators: sharded on their
+    leading env axis (``P("env")``); replay storage, slot-major, on its env
+    axis 1 (``P(None, "env")``) — every shard steps its own envs and writes
+    its own replay shard, no cross-shard traffic;
   * learner (params, target params, optimizer state): replicated (``P()``);
     each shard samples a local sub-batch, computes gradients, and
-    ``lax.pmean`` inside the update (``algos/dqn.py``) all-reduces them over
-    ICI, keeping the replicated learner bit-identical on every device;
+    ``lax.pmean`` inside the update (``algos/dqn.py``) all-reduces them
+    (NCCL across GPUs, NVLink within a host), keeping the replicated learner
+    bit-identical on every device;
   * per-shard loop counters / RNG / metric windows: one slot per shard,
     sharded on a leading ``(num_shards,)`` axis.
 
 The shard body is the SAME ``build_superstep`` used single-device — the mesh
 program is the single-chip program plus one collective, which is what makes
-1-chip-to-pod scaling a layout change rather than a rewrite.
+1-card-to-many scaling a layout change rather than a rewrite.
 """
 
 from __future__ import annotations
@@ -161,8 +163,8 @@ def build_distributed_superstep(
         lambda k: _to_global(init_local(k, net_key=k), replay), jax.random.PRNGKey(0)
     )
     specs = _runner_specs(example, replay)
-    # metrics are reduced IN-GRAPH over the env axis (psum/pmean ride ICI on
-    # real hardware, Gloo on the multi-process CPU backend) and come back
+    # metrics are reduced IN-GRAPH over the env axis (psum/pmean ride NCCL
+    # on GPUs, Gloo on the multi-process CPU backend) and come back
     # fully replicated — so the host can read them as plain scalars even when
     # this process only addresses a subset of the mesh (multi-process safe;
     # per-shard metric slots would be non-addressable off-host).

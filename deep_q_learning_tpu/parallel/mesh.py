@@ -4,7 +4,9 @@ The reference has no distributed capability at all (SURVEY.md §2: single
 process, single device).  The framework's scale axis is the environment
 instance dimension: env state, replay, and episode accounting shard over a 1-D
 ``("env",)`` mesh; the Q-network learner is replicated and its gradients
-all-reduce over ICI inside the jitted superstep (``parallel/distributed.py``).
+all-reduce inside the jitted superstep (``parallel/distributed.py``).  The
+cards of one host are joined all to all, so the mesh follows the algorithm
+alone.
 """
 
 from __future__ import annotations
@@ -29,13 +31,13 @@ def distributed_init(
       * single-process (the common case on one host / in tests): call with no
         arguments — initialization errors from missing coordinator env vars
         are swallowed and the process runs standalone;
-      * TPU pod slice: call with no arguments on each host; jax auto-detects
-        the coordinator from the TPU environment;
+      * a cluster whose launcher JAX recognizes (e.g. SLURM): call with no
+        arguments on each host; jax auto-detects the coordinator;
       * explicit multi-process (including the CPU-backend multi-process tests,
         ``tests/test_multiprocess.py``): pass ``coordinator_address``
         ("host:port"), ``num_processes`` and ``process_id`` — after this,
         ``jax.devices()`` spans every process (cross-process CPU collectives
-        ride Gloo; on TPU pods, ICI/DCN).
+        ride Gloo; GPU collectives, NCCL).
 
     Idempotent: a second call on an already-initialized runtime is a no-op.
     """

@@ -3,8 +3,8 @@
 The reference evaluates hyperparameter candidates strictly sequentially —
 one ``agent.training()`` per Bayesian-optimization trial
 (``/root/reference/General/QLearning/hyperparameter_optimization.py:126-132``),
-20 full training runs back to back on the host.  On a TPU the same search is
-a *batch* dimension: the superstep is a pure function of the runner pytree,
+20 full training runs back to back on the host.  On the device the same
+search is a *batch* dimension: the superstep is a pure function of the runner pytree,
 and every hyperparameter that matters for search is a traced value inside it
 (:class:`~deep_q_learning_tpu.algos.dqn.HyperParams`), so ``jax.vmap`` over
 the runner state trains K members — each with its OWN γ, ε-schedule,
@@ -22,13 +22,9 @@ Notes:
     every member pays the learner cost every gated step regardless of its
     cadence values.  Throughput per member therefore tracks the most
     update-heavy member; correctness is unaffected.
-  * HBM: K full runner states (K × replay buffer) — size populations
+  * device memory: K full runner states (K × replay buffer) — size populations
     accordingly (a 64-member CartPole population with 2^16-capacity buffers
     is ~a few hundred MB).
-  * ``use_pallas`` works under vmap (round 2): jax's pallas batching rule
-    lifts the member axis into a leading grid dimension, and the kernels keep
-    every operand >=2-D — vectors travel as (B, 1) columns — so the lifted
-    blocks stay Mosaic-legal (see ops/td_kernels.py, ops/sample_kernels.py).
 """
 
 from __future__ import annotations
@@ -53,10 +49,6 @@ def build_population(
     params per member); ``population_step(runner) -> (runner, metrics)`` is
     the vmapped superstep — jit it with ``donate_argnums=0``.
     """
-    # use_pallas=True is supported under vmap: jax's pallas batching rule
-    # lifts the member axis into a leading grid dimension, and the kernels
-    # keep every operand >=2-D so the lifted blocks stay Mosaic-legal
-    # (ops/td_kernels.py, ops/sample_kernels.py docstrings).
     from deep_q_learning_tpu.envs import VectorEnv, make_env
     from deep_q_learning_tpu.models import QNetwork
     from deep_q_learning_tpu.replay import make_replay
@@ -126,8 +118,8 @@ class PopulationTrainer:
 
     Builds (and jits) the vmapped superstep and evaluator ONCE; ``run`` can
     then be called many times (fresh member states per call).  This matters
-    on the remote TPU backend, where every re-jit of the LunarLander program
-    costs minutes: a Bayesian-HPO loop that calls ``run`` once per proposal
+    because every re-jit of the LunarLander program costs tens of seconds:
+    a Bayesian-HPO loop that calls ``run`` once per proposal
     round pays one compile for the whole search (the reference instead pays
     one full sequential training per trial,
     ``hyperparameter_optimization.py:126-132``)."""

@@ -20,7 +20,6 @@ def make_replay(cfg, num_envs=None):
     elif cfg.replay == "prioritized":
         return PrioritizedReplay(
             n, cap, alpha=cfg.per_alpha, beta=cfg.per_beta, eps=cfg.per_eps,
-            max_decay=cfg.per_max_decay,
-            use_pallas=getattr(cfg, "use_pallas_sampler", False), **common,
+            max_decay=cfg.per_max_decay, **common,
         )
     raise ValueError(f"unknown replay {cfg.replay!r}")

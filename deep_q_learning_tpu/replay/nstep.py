@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.envs.base import Transition  # noqa: F401 (API type)
 
@@ -65,8 +65,7 @@ def assemble_learn_batch(
     fields live in ONE packed (C, N, 4) f32 lane axis (RingStorage.aux),
     so the whole n-step window is a single (B, n, 4) gather, and the
     start-transition action rides in the window's first column (win[:, 0]
-    == slot_idx) — TPU gathers cost per row fetched, so this is ~4x
-    cheaper than per-field gathers at large batch."""
+    == slot_idx) — one gather instead of four per-field gathers."""
     from deep_q_learning_tpu.replay.uniform import (
         AUX_ACTION,
         AUX_REWARD,

@@ -6,14 +6,12 @@ PER (Schaul et al. 2015): sample ∝ priority^α, importance weights
 ``(1/(n·P))^β`` normalized by the batch max, new transitions at max priority,
 priorities updated to ``|td|+ε`` after each learner step.
 
-TPU-native layout: priorities live beside the ring storage as a dense
+Device layout: priorities live beside the ring storage as a dense
 ``(num_envs, capacity_per_env)`` array.  Sampling is a two-level categorical —
 (1) pick envs ∝ per-env priority sums, (2) pick slots within each chosen env
-row — implemented with cumulative sums + searchsorted, which vectorizes onto
-the VPU with no host sync and no tree pointer-chasing.  (With ``use_pallas=True`` the index
-selection runs as one Pallas kernel — ``ops/sample_kernels.py`` — that
-recasts the row gather and selection as one-hot matmuls on the MXU; the jnp
-form is the default/fallback and XLA fuses it into the superstep.)
+row — implemented with cumulative sums and rank-by-comparison, which
+vectorizes with no host sync and no tree pointer-chasing, and fuses into the
+superstep.
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.envs.base import Transition
 from deep_q_learning_tpu.replay.uniform import (  # noqa: F401
@@ -71,7 +69,6 @@ class PrioritizedReplay:
         beta: float = 0.4,
         eps: float = 1e-6,
         max_decay: float = 0.999,
-        use_pallas: bool = False,
         gamma: float = 0.99,
         n_step: int = 1,
         truncation_bootstrap: bool = True,
@@ -86,16 +83,12 @@ class PrioritizedReplay:
         self.gamma = gamma
         self.n_step = n_step
         self.truncation_bootstrap = truncation_bootstrap
-        # route index selection through the Pallas sampling kernel
-        # (ops/sample_kernels.py); jnp path is the default/fallback
-        self.use_pallas = use_pallas
 
     # ----------------------------------------------------------------- init
     def init(self, example: Transition) -> PrioritizedReplayState:
         # slot-major packed storage — see the layout note in replay/uniform.py.
         # priorities stay env-major (N, C): they are reduced/cumsum'd along
-        # the slot axis at sample time (and the Pallas sampling kernel's
-        # operand contract is (N, C)); their per-frame column write is tiny.
+        # the slot axis at sample time; their per-frame column write is tiny.
         assert example.obs.shape[0] == self.num_envs
 
         def alloc(leaf):
@@ -145,6 +138,45 @@ class PrioritizedReplay:
         )
 
     # --------------------------------------------------------------- sample
+    def sample_indices(
+        self, state: PrioritizedReplayState, key: jax.Array, batch_size: int
+    ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
+        """Two-level proportional draw: ``(env_idx, slot_idx, p_sel, total)``
+        where ``p_sel = p[env_idx, slot_idx] / total`` is each draw's
+        probability and ``total`` the sum of sampleable priorities."""
+        from deep_q_learning_tpu.replay.nstep import valid_slot_mask
+
+        # zero the newest n-1 slots so n-step windows never cross the cursor
+        mask = valid_slot_mask(
+            self.capacity_per_env, state.cursor, state.filled, self.n_step
+        )
+        p = state.priorities * mask[None, :].astype(jnp.float32)
+
+        env_key, slot_key = jax.random.split(key)
+        # level 1: env rows ∝ row sums.  Rank-by-comparison-sum instead of
+        # jnp.searchsorted: the dense compare+reduce is trivial compute and
+        # lowers to tiny HLO.
+        row_sums = jnp.sum(p, axis=1)  # (N,)
+        row_cdf = jnp.cumsum(row_sums)
+        total = row_cdf[-1]
+        u_env = jax.random.uniform(env_key, (batch_size,)) * total
+        env_idx = jnp.sum(
+            (row_cdf[None, :] < u_env[:, None]).astype(jnp.int32), axis=1
+        )
+        env_idx = jnp.minimum(env_idx, self.num_envs - 1)
+
+        # level 2: slot within each chosen row ∝ row priorities
+        rows = p[env_idx]  # (B, C) gather
+        row_cdfs = jnp.cumsum(rows, axis=1)
+        row_tot = row_cdfs[:, -1]
+        u_slot = jax.random.uniform(slot_key, (batch_size,)) * row_tot
+        slot_idx = jnp.sum(
+            (row_cdfs < u_slot[:, None]).astype(jnp.int32), axis=1
+        )
+        slot_idx = jnp.minimum(slot_idx, self.capacity_per_env - 1)
+        p_sel = p[env_idx, slot_idx] / jnp.maximum(total, 1e-12)
+        return env_idx, slot_idx, p_sel, total
+
     def sample_with_info(
         self, state: PrioritizedReplayState, key: jax.Array, batch_size: int,
         gamma=None, beta=None,
@@ -153,51 +185,9 @@ class PrioritizedReplay:
 
         ``gamma`` and ``beta`` may be traced runtime values (HyperParams);
         they default to the constructor's static values."""
-        from deep_q_learning_tpu.replay.nstep import (
-            assemble_learn_batch,
-            valid_slot_mask,
-        )
+        from deep_q_learning_tpu.replay.nstep import assemble_learn_batch
 
-        # zero the newest n-1 slots so n-step windows never cross the cursor
-        mask = valid_slot_mask(
-            self.capacity_per_env, state.cursor, state.filled, self.n_step
-        )
-        p = state.priorities * mask[None, :].astype(jnp.float32)
-
-        if self.use_pallas:
-            from deep_q_learning_tpu.ops.sample_kernels import (
-                prioritized_sample_pallas,
-            )
-
-            env_idx, slot_idx, p_sel = prioritized_sample_pallas(
-                p, key, batch_size, interpret=jax.default_backend() == "cpu"
-            )
-        else:
-            env_key, slot_key = jax.random.split(key)
-            # level 1: env rows ∝ row sums.  Rank-by-comparison-sum instead of
-            # jnp.searchsorted: the dense compare+reduce is trivial compute and
-            # lowers to tiny HLO, where batched searchsorted's binary-search
-            # lowering blows up TPU compile time.
-            row_sums = jnp.sum(p, axis=1)  # (N,)
-            row_cdf = jnp.cumsum(row_sums)
-            total = row_cdf[-1]
-            u_env = jax.random.uniform(env_key, (batch_size,)) * total
-            env_idx = jnp.sum(
-                (row_cdf[None, :] < u_env[:, None]).astype(jnp.int32), axis=1
-            )
-            env_idx = jnp.minimum(env_idx, self.num_envs - 1)
-
-            # level 2: slot within each chosen row ∝ row priorities
-            rows = p[env_idx]  # (B, C) gather
-            row_cdfs = jnp.cumsum(rows, axis=1)
-            row_tot = row_cdfs[:, -1]
-            u_slot = jax.random.uniform(slot_key, (batch_size,)) * row_tot
-            slot_idx = jnp.sum(
-                (row_cdfs < u_slot[:, None]).astype(jnp.int32), axis=1
-            )
-            slot_idx = jnp.minimum(slot_idx, self.capacity_per_env - 1)
-            p_sel = p[env_idx, slot_idx] / jnp.maximum(total, 1e-12)
-
+        env_idx, slot_idx, p_sel, _ = self.sample_indices(state, key, batch_size)
         batch = assemble_learn_batch(
             state.storage, env_idx, slot_idx,
             self.gamma if gamma is None else gamma,
@@ -223,17 +213,17 @@ class PrioritizedReplay:
         new_p = mag**self.alpha
         # Duplicate (env, slot) pairs in one batch are the SAME transition, so
         # their |td| values agree — but XLA scatter with duplicate indices has
-        # unspecified which-write-wins (and the scatter serializes on TPU:
-        # ~22 us vs ~11 us for this formulation at B=128, N=C=1024).  The
-        # update is instead two one-hot matmuls over the batch — value sums
-        # and counts.  Duplicates are first resolved to their group MAX via a
-        # tiny (B, B) pairwise comparison, after which every duplicate
-        # carries the same value and the count-normalized sum IS that value —
-        # deterministic max-wins, the documented rule
-        # (tests/test_per.py::test_update_duplicate_indices).  Guarded by the
-        # one-hot footprint (B·(N+C) elements): huge-N configs fall back to
-        # the set-then-max scatter rather than materializing a
-        # multi-hundred-MB env one-hot.
+        # unspecified which-write-wins.  The update is instead two one-hot
+        # matmuls over the batch — values and hit counts.  Duplicates are
+        # first resolved to their group MAX via a tiny (B, B) pairwise
+        # comparison, and only each group's first row writes, so every
+        # output sums at most one nonzero term: the result is exactly the
+        # group max — deterministic max-wins, the documented rule
+        # (tests/test_per.py::test_update_duplicate_indices).  The matmuls
+        # run at HIGHEST precision: a TF32 product would round the written
+        # priorities to 10 mantissa bits.  Guarded by the one-hot footprint
+        # (B·(N+C) elements): huge-N configs fall back to the set-then-max
+        # scatter rather than materializing a multi-hundred-MB env one-hot.
         b = info.env_idx.shape[0]
         if b * (self.num_envs + self.capacity_per_env) <= (1 << 22):
             same = jnp.logical_and(
@@ -243,18 +233,18 @@ class PrioritizedReplay:
             vmax = jnp.max(
                 jnp.where(same, new_p[None, :], -jnp.inf), axis=1
             )  # (B,) group max over duplicate (env, slot) pairs
+            first = ~jnp.any(jnp.tril(same, k=-1), axis=1)  # no earlier twin
             slot_oh = (
                 info.slot_idx[:, None]
                 == jnp.arange(self.capacity_per_env)[None, :]
-            ).astype(jnp.float32)  # (B, C)
+            ).astype(jnp.float32) * first[:, None]  # (B, C)
             env_oh = (
                 info.env_idx[:, None] == jnp.arange(self.num_envs)[None, :]
             ).astype(jnp.float32)  # (B, N)
-            sums = env_oh.T @ (slot_oh * vmax[:, None])  # (N, C)
-            counts = env_oh.T @ slot_oh
-            priorities = jnp.where(
-                counts > 0, sums / jnp.maximum(counts, 1.0), state.priorities
-            )
+            hi = jax.lax.Precision.HIGHEST
+            values = jnp.matmul(env_oh.T, slot_oh * vmax[:, None], precision=hi)
+            hits = jnp.matmul(env_oh.T, slot_oh, precision=hi)  # (N, C)
+            priorities = jnp.where(hits > 0, values, state.priorities)
         else:
             priorities = state.priorities.at[info.env_idx, info.slot_idx].set(0.0)
             priorities = priorities.at[info.env_idx, info.slot_idx].max(new_p)

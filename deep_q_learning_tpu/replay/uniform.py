@@ -1,11 +1,11 @@
-"""HBM-resident uniform replay — the device-side rebuild of the reference's
+"""Device-resident uniform replay — the device-side rebuild of the reference's
 host ring buffer (``/root/reference/General/Base/replay_buffer.py:10-85``).
 
 Reference design: one numpy circular buffer on the host, overwrite-oldest via
 ``counter % size`` (replay_buffer.py:35-43), and a numba-jitted host sampler
 drawing uniform indices **with replacement** (replay_buffer.py:68-85).
 
-TPU-native design: a pytree of device arrays laid out **slot-major** —
+Device design: a pytree of device arrays laid out **slot-major** —
 ``(capacity_per_env, num_envs, ...)`` — a per-env ring with the slot axis
 LEADING.  All ``num_envs`` lockstep instances write their transition at the
 same slot each step, so the write is a single ``dynamic_update_slice`` of one
@@ -15,25 +15,19 @@ with ``jax.random`` on device — with replacement, matching the reference
 sampler's semantics.  ``num_envs`` (axis 1) is the mesh's "env" axis, so the
 buffer shards with the envs and sampling stays shard-local.
 
-Why slot-major (round 5, measured on the v5e): with env-major
-``(num_envs, capacity, ...)`` leaves, the per-frame ring write updates a
-dynamic-offset COLUMN — which leaves XLA's layout assignment torn between
-the write's preferred layout and the sample-time gathers'.  Depending on
-the (N, C) shape it either picks a bad write layout (the write touches
-every 8-sublane tile of the leaf) or reconciles the two uses with
-per-frame layout-conversion copies of the whole ring inside the training
-loop.  Measured per-frame cost of the full write+sample replay block,
-env-major -> slot-major: 131072x64 envs/slots 755 us -> 90 us,
-4096x256 829 us -> 38 us, 1024x512 228 us -> 42 us.  Slot-major writes
-one contiguous row at a dynamic leading-axis offset — the one ring
-geometry XLA handles well at every shape family.
+Why slot-major: with env-major ``(num_envs, capacity, ...)`` leaves, the
+per-frame ring write updates a dynamic-offset COLUMN — which leaves XLA's
+layout assignment torn between the write's preferred layout and the
+sample-time gathers', and can reconcile the two with per-frame
+layout-conversion copies of the whole ring inside the training loop.
+Slot-major writes one contiguous row at a dynamic leading-axis offset.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from deep_q_learning_tpu import struct
 
 from deep_q_learning_tpu.envs.base import Transition
 
@@ -48,13 +42,10 @@ class RingStorage:
 
     ``obs``/``next_obs`` keep their dtype/feature shape; the four scalar
     fields (reward, action, terminated, truncated) are PACKED into one
-    float32 ``aux`` lane axis.  Rationale (round 5, measured on the v5e):
-    TPU batched gathers cost per ROW fetched, nearly independent of the
-    row width up to ~8 lanes — at the 4096-batch lunar shape one packed
-    (B, n, 4) window gather costs ~100 us where the four separate scalar
-    gathers cost ~340 us, and the n-step assembler reuses the window's
-    first column for the start-transition action, eliminating a fourth
-    gather entirely.  Packing is exact: actions are small ints (f32-exact
+    float32 ``aux`` lane axis, so the n-step window is one (B, n, 4)
+    gather instead of four scalar gathers, and the n-step assembler reuses
+    the window's first column for the start-transition action.  Packing is
+    exact: actions are small ints (f32-exact
     to 2^24) and the flags are 0/1.
     """
 

@@ -5,8 +5,8 @@ episodes (``/root/reference/General/Base/utils.py:21-40``) and has **no
 mid-training resume** — buffer, ε, and counters are lost on crash
 (SURVEY.md §5.3-5.4).  Here the FULL runner state (params, target params,
 optimizer state, env states, replay buffer contents, RNG, every counter) is
-one pytree, checkpointed with Orbax and restored exactly — training resumes
-bit-identically.
+one pytree, written as the flattened leaves of that pytree (one ``.npz``) and
+restored exactly — training resumes bit-identically.
 
 A pickle-compat layer reproduces the reference's on-disk format
 (``<dir>/params.pickle`` + ``<dir>/opt_state.pickle``) for users migrating
@@ -15,51 +15,118 @@ from it.
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
+import shutil
 from typing import Any
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.experimental import multihost_utils
+
+_LEAVES = "leaves.npz"
+_META = "meta.json"
 
 
 # ---------------------------------------------------------------------------
-# Full-state checkpoints (orbax)
+# Full-state checkpoints
 # ---------------------------------------------------------------------------
+
+def _to_host(leaf: Any) -> np.ndarray:
+    """Whole value of one leaf on this host (collective for leaves sharded
+    over devices of other processes: every process must call it)."""
+    if isinstance(leaf, jax.Array) and not leaf.is_fully_addressable:
+        return np.asarray(multihost_utils.process_allgather(leaf, tiled=True))
+    return np.asarray(leaf)
+
 
 def save_checkpoint(path: str, state: Any, step: int) -> str:
-    """Save a pytree checkpoint under ``path/<step>``; returns the dir."""
-    import orbax.checkpoint as ocp
+    """Save a pytree checkpoint under ``path/<step>``; returns the dir.
 
+    Every process calls this; process 0 writes.  The directory appears
+    complete or not at all (written beside it, then renamed)."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
     ckpt_dir = os.path.join(path, str(step))
-    with ocp.StandardCheckpointer() as ckptr:
-        ckptr.save(ckpt_dir, state, force=True)
+    leaves, treedef = jax.tree.flatten(state)
+    host = [_to_host(x) for x in leaves]
+    if jax.process_index() == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = ckpt_dir + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        # raw bytes: np.savez cannot round-trip extension dtypes (bfloat16)
+        np.savez(
+            os.path.join(tmp, _LEAVES),
+            **{
+                str(i): np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+                for i, a in enumerate(host)
+            },
+        )
+        meta = {
+            "treedef": str(treedef),
+            "shapes": [list(a.shape) for a in host],
+            "dtypes": [str(a.dtype) for a in host],
+        }
+        with open(os.path.join(tmp, _META), "w") as f:
+            json.dump(meta, f)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        os.replace(tmp, ckpt_dir)
+    if jax.process_count() > 1:
+        multihost_utils.sync_global_devices(f"save_checkpoint:{ckpt_dir}")
     return ckpt_dir
 
 
 def restore_checkpoint(path: str, target: Any, step: int | None = None) -> Any:
     """Restore from ``path/<step>`` (or the latest step dir if None) into the
-    structure of ``target`` (an example pytree, e.g. a fresh runner state)."""
-    import orbax.checkpoint as ocp
+    structure of ``target`` (an example pytree, e.g. a fresh runner state).
 
+    Leaves come back with ``target``'s shardings.  A checkpoint whose tree,
+    shapes or dtypes differ from ``target`` raises ``ValueError``."""
     path = os.path.abspath(path)
     if step is None:
-        steps = sorted(int(d) for d in os.listdir(path) if d.isdigit())
-        if not steps:
+        step = latest_step(path)
+        if step is None:
             raise FileNotFoundError(f"no checkpoints under {path}")
-        step = steps[-1]
-    with ocp.StandardCheckpointer() as ckptr:
-        abstract = jax.tree.map(ocp.utils.to_shape_dtype_struct, target)
-        return ckptr.restore(os.path.join(path, str(step)), abstract)
+    ckpt_dir = os.path.join(path, str(step))
+    with open(os.path.join(ckpt_dir, _META)) as f:
+        meta = json.load(f)
+    leaves, treedef = jax.tree.flatten(target)
+    if meta["treedef"] != str(treedef):
+        raise ValueError(
+            f"checkpoint {ckpt_dir} holds a different state tree than the "
+            f"restore target:\n  saved:  {meta['treedef']}\n  target: {treedef}"
+        )
+    out = []
+    with np.load(os.path.join(ckpt_dir, _LEAVES)) as z:
+        for i, leaf in enumerate(leaves):
+            shape, dtype = tuple(meta["shapes"][i]), meta["dtypes"][i]
+            want = (tuple(np.shape(leaf)), str(np.result_type(leaf)))
+            if (shape, dtype) != want:
+                raise ValueError(
+                    f"checkpoint {ckpt_dir} leaf {i}: saved {dtype}{list(shape)}, "
+                    f"target {want[1]}{list(want[0])}"
+                )
+            arr = z[str(i)].view(jnp.dtype(dtype)).reshape(shape)
+            if isinstance(leaf, jax.Array):
+                out.append(
+                    jax.make_array_from_callback(
+                        shape, leaf.sharding, lambda idx, a=arr: a[idx]
+                    )
+                )
+            else:
+                out.append(arr)
+    return jax.tree.unflatten(treedef, out)
 
 
 def latest_step(path: str) -> int | None:
     if not os.path.isdir(path):
         return None
-    steps = sorted(int(d) for d in os.listdir(path) if d.isdigit())
+    steps = sorted(
+        int(d) for d in os.listdir(path)
+        if d.isdigit() and os.path.exists(os.path.join(path, d, _META))
+    )
     return steps[-1] if steps else None
 
 
@@ -126,7 +193,7 @@ def load_params_pickle(directory: str):
 
 def haiku_to_flax_params(hk_params, hidden_layers: int):
     """Convert a reference (Haiku) ``Model`` param dict to this framework's
-    ``QNetwork`` (Flax) structure.
+    ``QNetwork`` structure (the tree Flax's ``linen.Dense`` layers used).
 
     The reference model (``/root/reference/LunarLander/dddqn.py:11-34``)
     creates, in order: trunk Linear(32), Linear(64), value Linear(1),

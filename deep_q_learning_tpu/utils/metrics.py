@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 from typing import Dict, Iterable, List, Optional
 
@@ -73,6 +74,17 @@ def plot_history(
     fig.savefig(path, dpi=110)
     plt.close(fig)
     return path
+
+
+def gpu_cards() -> List[str]:
+    """``name, power.limit`` of every visible NVIDIA card, one line each, as
+    ``nvidia-smi`` prints them.  A card may be set below its maximum power
+    limit and then runs slower under load, so every timing names both."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
 
 
 @contextlib.contextmanager

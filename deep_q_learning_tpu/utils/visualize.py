@@ -1,7 +1,7 @@
 """Greedy-rollout recording and visualization.
 
 The reference's ``generate_visualization`` (utils.py:43-52) opens a Gym
-render window and steps one greedy episode on the host.  Headless TPU pods
+render window and steps one greedy episode on the host.  Headless GPU hosts
 have no display, so the equivalent here is (a) a jitted greedy trajectory
 recorder (whole rollout on device, one host fetch) and (b) plot/dump helpers:
 a LunarLander flight-path figure and an .npz trajectory dump that any
@@ -117,7 +117,7 @@ def render_lander_animation(
     """Animated replay of a recorded LunarLander trajectory — the headless
     equivalent of the reference's live render window
     (``/root/reference/General/Base/utils.py:43-52`` calls ``env.render()``
-    per step; TPU pods have no display, so this draws the recorded rollout
+    per step; headless hosts have no display, so this draws the recorded rollout
     into a .gif/.mp4 via matplotlib.animation).
 
     Requires the trajectory to have been recorded with

@@ -12,7 +12,7 @@ so the WHOLE search compiles ONE vmapped population program
 round.  Contrast the reference: 20 sequential full trainings
 (`hyperparameter_optimization.py:126-132`).
 
-Usage (TPU-attached, nothing else on the chip):
+Usage (one GPU, nothing else on the card):
 
     python examples/lunar_hpo_population.py --trials 24 --q 8 \
         --steps-per-trial 8000000 --out artifacts/lunar_hpo_solving.json

@@ -37,7 +37,7 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = dataclasses.replace(
-        PRESETS[args.preset](), num_envs=args.num_envs, use_pallas=False
+        PRESETS[args.preset](), num_envs=args.num_envs
     )
     values = np.geomspace(args.low, args.high, args.members)
     res = train_population(

@@ -7,8 +7,8 @@ seed.  This harness re-trains the best-found config with K independent seeds
 as ONE vmapped population (per-member network init + env streams) and records
 the eval spread, pinning the result against seed luck.
 
-Run on the TPU:
-    PYTHONPATH=/root/repo python examples/ref_space_seed_check.py
+Run on the GPU:
+    python examples/ref_space_seed_check.py
 
 Writes artifacts/ref_space_seed_check.json.
 """

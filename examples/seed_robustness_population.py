@@ -10,7 +10,7 @@ cadence and records the first superstep at which each member's
 ``return_window``-episode window crosses 200 (the canonical LunarLander
 solve bar) and 230 (the reference's stricter one, Test/lunar_lander.py:36).
 
-Usage (TPU-attached, nothing else on the chip):
+Usage (one GPU, nothing else on the card):
 
     python examples/seed_robustness_population.py \
         --members 10 --budget 45000000 --out artifacts/lunar_seed_robustness_r2.json
@@ -137,7 +137,6 @@ def main() -> None:
         "preset": args.preset,
         "members": K,
         "seed": args.seed,
-        "use_pallas": cfg.use_pallas,
         "budget_per_member": args.budget,
         "compile_s": round(compile_s, 1),
         "wall_s": round(wall, 1),

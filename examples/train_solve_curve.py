@@ -7,8 +7,8 @@ evaluation (the reference's eval returned the training window,
 ``/root/reference/General/QLearning/q_agent.py:231``) and writes
 ``artifacts/<preset>_solve.json`` with the full window curve.
 
-Usage (on the TPU):
-    PYTHONPATH=/root/repo python examples/train_solve_curve.py lunar_jointed_per \
+Usage (on the GPU):
+    python examples/train_solve_curve.py lunar_jointed_per \
         [--steps 60000000] [--seed 0] [--set key=value ...]
 """
 

@@ -3,14 +3,14 @@
 Launched by ``tests/test_multiprocess.py`` as N real OS processes, each with
 its own virtual CPU devices (``--xla_force_host_platform_device_count``),
 joined into ONE jax runtime via ``jax.distributed.initialize`` — the same
-process topology as one-process-per-host on a TPU pod slice (SURVEY.md §4.3:
+process topology as one process per host on a multi-host cluster (SURVEY.md §4.3:
 "multi-host logic testable via ... a process-spawning pytest fixture").
 
 Each worker trains a ``DistributedTrainer`` over the GLOBAL mesh, saves a
-multi-process orbax checkpoint, restores it (twice), resumes, and writes a
+multi-process checkpoint, restores it (twice), resumes, and writes a
 JSON digest of everything the test needs to verify:
   * the replicated learner is bit-identical across processes,
-  * orbax save/restore round-trips with >1 process writing,
+  * save/restore round-trips with >1 process,
   * metrics aggregate correctly when each process only addresses its shards,
   * resume-from-checkpoint is bitwise deterministic.
 

@@ -17,7 +17,6 @@ def test_build_config_overrides():
             "target_tau=0.01",
             "max_grad_norm=none",
             "double=true",
-            "use_pallas=false",
             "solve_threshold=123.5",
         ],
     )

@@ -116,7 +116,7 @@ def test_population_objective_end_to_end():
     assert len(objective.trainers) == 2
 
     # a second round with the same static layout REUSES the built programs
-    # (one compile for the whole search; remote lunar jits cost minutes)
+    # (one compile for the whole search; lunar jits cost tens of seconds)
     before = {k: id(v) for k, v in objective.trainers.items()}
     vals2 = objective(cands)
     assert all(np.isfinite(v) for v in vals2)

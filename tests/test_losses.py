@@ -139,3 +139,82 @@ def test_terminal_vs_bootstrap_errors():
     np.testing.assert_allclose(
         np.asarray(err), np.asarray(batch.reward) - q_taken, rtol=1e-5, atol=1e-6
     )
+
+
+def _q_batch(b=64, a=4, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: np.asarray(x, np.float32)
+    q_s, q_no, q_nt = (f32(rng.normal(size=(b, a)) * 2) for _ in range(3))
+    action = rng.integers(0, a, size=b).astype(np.int32)
+    reward = f32(rng.normal(size=b) * 3)
+    bootstrap = f32(0.97 * (rng.random(b) > 0.25))
+    weights = f32(rng.random(b) + 0.1)
+    return q_s, q_no, q_nt, action, reward, bootstrap, weights
+
+
+def _loss_on_q(double, loss, delta=1.0):
+    """The repo's loss fed Q-values directly: the "network" picks one half of
+    a (B, 2A) input (online params [1, 0], target params [0, 1])."""
+    fn = build_loss_fn(
+        lambda p, x: p[0] * x[:, : x.shape[1] // 2] + p[1] * x[:, x.shape[1] // 2:],
+        double=double, loss=loss, huber_delta=delta,
+    )
+
+    def run(q_s, q_no, q_nt, action, reward, bootstrap, weights):
+        batch = LearnBatch(
+            obs=jnp.concatenate([q_s, jnp.zeros_like(q_s)], 1), action=action,
+            reward=reward, next_obs=jnp.concatenate([q_no, q_nt], 1),
+            bootstrap=bootstrap,
+        )
+        return fn(jnp.array([1.0, 0.0]), jnp.array([0.0, 1.0]), batch, weights)
+
+    return run
+
+
+@pytest.mark.parametrize("loss", ["huber", "mse"])
+@pytest.mark.parametrize("double", [True, False])
+def test_plain_loss_matches_float64_reference(double, loss):
+    q_s, q_no, q_nt, action, reward, bootstrap, weights = _q_batch()
+    got_loss, got_td = _loss_on_q(double, loss)(
+        q_s, q_no, q_nt, action, reward, bootstrap, weights)
+    f64 = lambda x: np.asarray(x, np.float64)
+    rows = np.arange(len(action))
+    boot = (f64(q_nt)[rows, np.argmax(q_no, 1)] if double else f64(q_nt).max(1))
+    td = f64(reward) + f64(bootstrap) * boot - f64(q_s)[rows, action]
+    if loss == "huber":
+        per = np.where(np.abs(td) <= 1.0, 0.5 * td**2, np.abs(td) - 0.5)
+    else:
+        per = 0.5 * td**2
+    np.testing.assert_allclose(np.asarray(got_td), td, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(got_loss), np.mean(f64(weights) * per), rtol=1e-5)
+
+
+@pytest.mark.parametrize("double", [True, False])
+def test_huber_gradient_rule(double):
+    """dL/dQ(s, a) = -w · clip(td, ±δ) / B at the taken action, 0 elsewhere
+    (targets are stopped), for δ = 1 and δ = 0.5."""
+    q_s, q_no, q_nt, action, reward, bootstrap, weights = _q_batch(seed=1)
+    for delta in (1.0, 0.5):
+        run = _loss_on_q(double, "huber", delta)
+        dq, td = jax.grad(
+            lambda q: run(q, q_no, q_nt, action, reward, bootstrap, weights),
+            has_aux=True,
+        )(jnp.asarray(q_s))
+        want = np.zeros_like(q_s)
+        rows = np.arange(len(action))
+        want[rows, action] = -weights * np.clip(np.asarray(td), -delta, delta) / len(action)
+        np.testing.assert_allclose(np.asarray(dq), want, rtol=1e-6, atol=1e-9)
+
+
+def test_huber_gradient_clips_large_errors():
+    """In the linear regime |td| > δ every sample's gradient magnitude is
+    exactly w·δ/B: outliers cannot dominate the update."""
+    q_s, q_no, q_nt, action, reward, bootstrap, weights = _q_batch(seed=2)
+    reward = reward + 100.0
+    run = _loss_on_q(True, "huber", 1.0)
+    dq, td = jax.grad(
+        lambda q: run(q, q_no, q_nt, action, reward, bootstrap, weights), has_aux=True
+    )(jnp.asarray(q_s))
+    assert float(jnp.min(jnp.abs(td))) > 1.0
+    taken = np.asarray(dq)[np.arange(len(action)), action]
+    np.testing.assert_allclose(-taken, weights / len(action), rtol=1e-6)

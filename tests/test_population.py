@@ -69,20 +69,21 @@ def test_set_population_hyper_validation():
         set_population_hyper(runner, gamma=[0.9, 0.99, 0.999])  # wrong length
 
 
-def test_pallas_population_trains():
-    """Round-2: the Mosaic kernels are vmap-able (member axis -> grid dim),
-    so populations run the full lunar_per-style kernel path.  On CPU this
-    exercises the identical kernels through the Pallas interpreter."""
-    cfg = dataclasses.replace(
-        TINY, use_pallas=True, replay="prioritized", double=True
-    )
+def test_population_with_per_trains():
+    """Prioritized replay and double DQN under the member vmap: the
+    lunar_per-style learner path (PER sample, priority update) batched over
+    members."""
+    cfg = dataclasses.replace(TINY, replay="prioritized", double=True)
     init_population, population_step, _ = build_population(cfg, num_members=2)
     runner = init_population(jax.random.PRNGKey(0))
     step = jax.jit(population_step, donate_argnums=0)
     for _ in range(4):
         runner, m = step(runner)
     assert np.isfinite(np.asarray(m.window_mean)).all()
-    assert np.asarray(m.loss_count).min() > 0  # the kernel learner ran
+    assert np.asarray(m.loss_count).min() > 0  # every member's learner ran
+    # members keep their own priorities (per-member replay state)
+    pri = np.asarray(runner.replay.priorities)
+    assert pri.shape[0] == 2 and not np.array_equal(pri[0], pri[1])
     w = np.asarray(m.window_mean)
     assert w.shape == (2,)
 

@@ -86,6 +86,20 @@ SMALL = DQNConfig(
 )
 
 
+def test_scatter_matmul_at_highest_precision():
+    """The window write carries return values through a matmul: it runs at
+    HIGHEST precision, or a TF32 GPU product rounds the stored returns."""
+    n, w = 64, 16
+    jaxpr = jax.make_jaxpr(_scatter_completed_returns)(
+        jnp.zeros(w), jnp.int32(0), jnp.int32(0), jnp.zeros(n, bool), jnp.zeros(n)
+    )
+    dots = [e for e in jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 1
+    assert dots[0].params["precision"] == (
+        jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST
+    )
+
+
 def test_superstep_counters_and_metrics():
     init_runner, superstep = _build(SMALL)
     runner = init_runner(jax.random.PRNGKey(0))

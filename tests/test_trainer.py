@@ -101,6 +101,23 @@ def test_checkpoint_resume_bitwise(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+def test_checkpoint_rejects_mismatched_template(tmp_path):
+    """Restoring into a state of another tree or shape fails with a clear
+    error naming the difference, not a bare pytree mismatch."""
+    import jax.numpy as jnp
+
+    state = {"w": jnp.ones((3, 2)), "n": jnp.int32(4)}
+    ckpt.save_checkpoint(str(tmp_path), state, step=7)
+    back = ckpt.restore_checkpoint(str(tmp_path), state)
+    np.testing.assert_array_equal(np.asarray(back["w"]), np.ones((3, 2)))
+    assert back["n"].dtype == jnp.int32 and int(back["n"]) == 4
+    with pytest.raises(ValueError, match="leaf 1: saved float32\\[3, 2\\]"):
+        ckpt.restore_checkpoint(str(tmp_path), {"w": jnp.ones((3, 3)), "n": jnp.int32(0)})
+    with pytest.raises(ValueError, match="different state tree"):
+        ckpt.restore_checkpoint(str(tmp_path), {"w": jnp.ones((3, 2))})
+    assert ckpt.latest_step(str(tmp_path)) == 7
+
+
 def test_pickle_compat_roundtrip(tmp_path):
     tr = Trainer(CFG).init()
     d = os.path.join(str(tmp_path), "ref_format")
